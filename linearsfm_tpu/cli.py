@@ -6,8 +6,9 @@ Same flags as the reference binary (lmj_parseArgs,
     python -m linearsfm_tpu.cli -path DATA -num N -type {Monocular,Stereo}
                                 [-st state.txt] [-p pose.txt] [-f feat.txt]
 
-plus TPU-native extensions: --method, --exec, --cpu, --quiet, --ckpt,
---resume, --trace, --check.
+plus extensions: --method, --exec, --cpu, --quiet, --ckpt, --resume,
+--trace, --check. It runs on the GPU and fails when JAX finds none, unless
+--cpu asks for the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import sys
 
 
 def _print_help():
-    print("Linear SFM (TPU) General Options\n")
+    print("Linear SFM (JAX) General Options\n")
     print("-path          Set Data Path.")
     print("-st            Set Path to Save Final State Vector")
     print("-p             Set Path to Save Poses")
@@ -73,6 +74,10 @@ def main(argv=None):
     import jax
     if opts["cpu"]:
         jax.config.update("jax_platforms", "cpu")
+    elif jax.default_backend() != "gpu":
+        print(f"LinearSFM Error: JAX found no GPU (backend "
+              f"{jax.default_backend()!r}); pass --cpu to run on the CPU")
+        return 1
 
     import logging
     logging.basicConfig(level=logging.WARNING if opts["quiet"] else logging.INFO,
@@ -80,8 +85,8 @@ def main(argv=None):
 
     from .core import pipeline
     datatype = "mono" if opts["type"] == "Monocular" else "stereo"
-    # Default to the device-resident executor (fastest on TPU; also supports
-    # checkpoint/resume via stacked level-boundary snapshots).
+    # Default to the device-resident executor (also supports checkpoint/
+    # resume via stacked level-boundary snapshots).
     executor = opts["exec"] or "device"
     final, wall = pipeline.run(
         opts["path"], int(opts["num"]), datatype,

@@ -43,8 +43,8 @@ class TreeSolver:
 
     strategy:
       * "level" (default): all joins of a tree level run as ONE jitted
-        vmapped program (optionally shard_map'd over a mesh) — the TPU-native
-        path: a single device-dispatch per level instead of per join.
+        vmapped program (optionally shard_map'd over a mesh): a single
+        device dispatch per level instead of per join.
       * "serial": one jitted program per join, reference-like host loop.
     """
 
@@ -120,7 +120,7 @@ class TreeSolver:
             g = self._transform(g, fin)
         return g
 
-    # -- level-batched execution (the TPU-native path) -----------------------
+    # -- level-batched execution ---------------------------------------------
     def _common_capacity(self, maps: list[types.LocalMap]):
         M = max(lm.M for lm in maps)
         N = max(lm.N for lm in maps)

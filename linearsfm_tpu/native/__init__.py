@@ -1,8 +1,10 @@
-"""Native (C) runtime components, compiled on demand with a Python fallback.
+"""Native (C) runtime components, compiled from source on demand with a
+Python fallback.
 
-Currently: `fastparse` — the local-map text reader hot path.
-Build happens lazily into this package directory; failures fall back to the
-pure-Python tokenizer in io/localmap.py.
+Currently: `fastparse` — the local-map text reader hot path. The extension
+is built from fastparse.c into this package directory at first use (never
+committed); a failed build logs a warning and the pure-Python tokenizer in
+io/localmap.py takes over.
 """
 
 from __future__ import annotations
@@ -10,7 +12,6 @@ from __future__ import annotations
 import logging
 import os
 import subprocess
-import sys
 import sysconfig
 
 log = logging.getLogger("linearsfm_tpu")
@@ -26,17 +27,22 @@ def _build() -> bool:
         return True
     inc_py = sysconfig.get_paths()["include"]
     inc_np = np.get_include()
+    # Build to a per-process name and rename into place, so concurrent
+    # processes never load a half-written library.
+    tmp = f"{out}.{os.getpid()}.tmp"
     cmd = ["gcc", "-O2", "-shared", "-fPIC", src, f"-I{inc_py}", f"-I{inc_np}",
-           "-o", out]
+           "-o", tmp]
     try:
         r = subprocess.run(cmd, capture_output=True, timeout=120)
-        if r.returncode != 0:
-            log.debug("fastparse build failed: %s", r.stderr.decode()[-400:])
-            return False
-        return True
-    except Exception as e:  # noqa: BLE001
-        log.debug("fastparse build error: %s", e)
+    except (OSError, subprocess.SubprocessError) as e:
+        log.warning("fastparse build failed (%s); using the Python reader", e)
         return False
+    if r.returncode != 0:
+        log.warning("fastparse build failed; using the Python reader: %s",
+                    r.stderr.decode()[-400:])
+        return False
+    os.replace(tmp, out)
+    return True
 
 
 _fastparse = None
@@ -53,6 +59,7 @@ def get_fastparse():
         try:
             from . import fastparse  # type: ignore
             _fastparse = fastparse
-        except Exception:  # noqa: BLE001
-            _fastparse = None
+        except ImportError as e:
+            log.warning("fastparse failed to load (%s); using the Python "
+                        "reader", e)
     return _fastparse

@@ -62,9 +62,10 @@ def congruence_emit(U, Uij, W, Wpf, V, Dp, Df, Cp, Cf, r_slot,
     Dwp, Dwf = Dp[wp], Df[wf]
 
     # Transformed existing blocks: D_i^T B D_j. All block contractions here
-    # go through ops/smallmat (broadcast-multiply-sum): an f64 dot_general
-    # silently demotes to ~f32 on this TPU, and the congruence products ARE
-    # the information path — einsum would quietly destroy f64 fusion.
+    # go through ops/smallmat (broadcast-multiply-sum), a design chosen for a
+    # machine whose f64 dot_general ran at ~f32: the congruence products ARE
+    # the information path. On the H100 f64 einsum is native; whether the
+    # elementwise form still pays is open (see ops/smallmat.py).
     U_t = congr(Dui, U, Duj)
     W_t = congr(Dwp, W, Dwf)
     V_t = congr(Df, V, Df)

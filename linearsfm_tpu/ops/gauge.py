@@ -2,7 +2,7 @@
 
 The reference implements these as ~4,900 hand-unrolled lines
 (`lmj_Transform_PF3DStereo`, /root/reference/linux/src/LinearSFMImp/LinearSFMImp.cpp:349-1924;
-`lmj_Transform_PF3DMono`, :3173-6509). The TPU-native design expresses a
+`lmj_Transform_PF3DMono`, :3173-6509). This design expresses a
 transform as a tiny per-block function of (own block, gauge parameters) and
 gets every Jacobian by `jax.jacfwd` — the reference's hand-derived J1/J2/J3
 are exactly these derivatives (see tests/test_congruence.py).
@@ -97,10 +97,10 @@ def mono_feat_block(x: jax.Array, g: jax.Array, s: jax.Array, fix: jax.Array) ->
 # --------------------------------------------------------------------------
 # Batched whole-map gauge maps. Semantically identical to vmapping the
 # per-block functions above, but all trig is funneled through ONE stacked
-# sincos site and ONE fused euler-extraction site: f64 transcendentals cost
-# ~1 MB of emulated executable code PER HLO OP on TPU (CLAUDE.md), so the
-# per-block form (one trig site per vmap callee per argument) dominated the
-# level-program executable mass; the batched form is ~10x smaller to compile.
+# sincos site and ONE fused euler-extraction site: the per-block form (one
+# trig site per vmap callee per argument) multiplied the f64 transcendental
+# HLO ops of every level program (186 vs 14 sites), and with them the code
+# to compile.
 # --------------------------------------------------------------------------
 
 def stereo_batched(poses, feats, g):

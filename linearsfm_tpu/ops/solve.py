@@ -2,12 +2,13 @@
 
 The reference factorizes the reduced camera system with CHOLMOD
 (pba_solveCholmodLM/GN, /root/reference/linux/src/LinearSFMImp/LinearSFMImp.cpp:2380-2449,
-:7043-7121). On TPU the economics flip: a dense blocked Cholesky saturates the
-MXU, while sparse supernodal scheduling serializes — so every join solves a
-dense [6M, 6M] system; the *precision*, not the sparsity, is the knob:
+:7043-7121). On an accelerator a dense Cholesky runs as large parallel
+matmuls, while sparse supernodal scheduling serializes — so every join
+solves a dense [6M, 6M] system; the *precision*, not the sparsity, is the
+knob:
 
-* ``direct``: factor in the working dtype (f64 on CPU; emulated f64 on TPU).
-* ``refine``: factor in f32 on the MXU, then a few iterative-refinement steps
+* ``direct``: factor in the working dtype (f64; native on the H100).
+* ``refine``: factor in f32, then a few iterative-refinement steps
   with residuals accumulated in f64 — near-f64 accuracy at f32 speed when
   ``cond(S) * eps_f32 << 1``.
 
@@ -45,7 +46,7 @@ def cholesky_solve(S, E):
 def cholesky_solve_refine(S, E, iters: int = 3):
     """f32 factorization + f64 iterative refinement.
 
-    The factorization and triangular solves run in f32 (MXU); the residual
+    The factorization and triangular solves run in f32; the residual
     ``r = E - S x`` is computed against the f64 operands. Each sweep multiplies
     the error by ~cond(S)*eps_f32.
     """

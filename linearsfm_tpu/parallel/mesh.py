@@ -5,10 +5,10 @@ Topology policy (the "collective plan" for the merge tree):
 * Within a host/slice, tree levels with many pairs run map-parallel over a
   ``pairs`` axis (shard_map; no cross-device traffic except the final gather).
 * Root-level joins switch to the ``fs`` (feature-sharded) axis: partial
-  reduced camera systems are `psum`'d over ICI.
+  reduced camera systems are `psum`'d across the devices.
 * Across hosts, lower tree levels are host-local by construction (each host
   owns a contiguous span of local maps, exactly the reference's binary-tree
-  grouping); only ⌈log2(n_hosts)⌉ upper levels move maps over DCN. The static
+  grouping); only ⌈log2(n_hosts)⌉ upper levels move maps between hosts. The static
   schedule falls out of the map count, mirroring
   lmj_PF3D_Divide_Conquer* (LinearSFMImp.cpp:1932-2035).
 """

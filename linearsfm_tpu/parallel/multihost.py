@@ -19,7 +19,7 @@ odd, the root re-gauges to the final frame exactly once (the transform is
 idempotent through the ref > fref guard). Full blocks get the same positions
 from the exact planner's ``map_offset`` (core/plan.py).
 
-DCN policy for the top levels: ALL-GATHER the per-block roots once and run
+Cross-host policy for the top levels: ALL-GATHER the per-block roots once and run
 the top levels REPLICATED on every host. A compacted root map is small (the
 information form is O(map blocks), not O(trajectory²)), so a single
 allgather of ceil(n/2^L) maps beats a log-depth pairwise exchange
@@ -29,7 +29,7 @@ the global level-L map list in order, the replicated top phase with
 ``map_offset=0`` reproduces the single-process schedule exactly.
 
 Transport: under ``jax.distributed`` the gather runs as
-``multihost_utils.process_allgather`` over DCN; single-process callers (and
+``multihost_utils.process_allgather`` between hosts; single-process callers (and
 the virtual-mesh dry run) pass a trivial gather. The same code path serves
 both — process boundaries only change the transport, never the math.
 """

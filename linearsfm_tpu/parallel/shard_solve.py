@@ -4,8 +4,8 @@ The root joins of NC3500-scale trees have tens of thousands of landmark
 blocks; their Schur contributions ``sum_f W_f Vinv_f W_f^T`` dominate the
 assembly cost. Here the feature axis is sharded over a mesh axis: each device
 computes the partial reduced camera system for its feature shard and the
-partials are `psum`'d over ICI; the dense Cholesky then runs replicated (the
-MXU eats it), and feature back-substitution is sharded again.
+partials are `psum`'d across the devices; the dense Cholesky then runs
+replicated, and feature back-substitution is sharded again.
 
 Two entry points:
 
@@ -14,11 +14,11 @@ Two entry points:
 * ``sharded_full_mixed`` — the production root solve: the same
   f32-Schur-factor-preconditioned **f64 PCG on the full information system**
   as ops/schur.solve_full_mixed, with the feature axis sharded. The dense
-  per-shard W stripes ride the MXU, the PCG matvec is a psum of per-shard
-  f64 block-list segment-sums (VPU — no f64 matmul anywhere), and the
+  per-shard W stripes are f32 matmuls, the PCG matvec is a psum of
+  per-shard f64 block-list segment-sums (no f64 matmul anywhere), and the
   triangular solves run replicated. Plain refinement diverges at 1024+-map
   roots (cond * eps_f32 > 1, measured r2); this keeps the multi-chip top
-  levels at the same accuracy as the single-chip path.
+  levels at the same accuracy as the single-device path.
 
 Semantically identical to ops/schur.py's single-device paths (tested against
 them); use for single-pair (root) joins, not inside vmapped levels.
@@ -174,6 +174,15 @@ def sharded_full_mixed(U, Uij, W, Wpf, V, eP, eF, M: int, fixed_mask,
         own_w = (wf >= lo) & (wf < lo + Nl)
         own_u = (jnp.arange(KU) % nd) == d
         psum = lambda x: jax.lax.psum(x, axis)
+
+        # Replicated operands are computed redundantly on every device, and
+        # on a GPU their scatter-adds reduce in no fixed order, so the copies
+        # can differ in their last bits. PCG on such copies mixes slightly
+        # different operators across the psums, and the gap between its
+        # recursive and true residual grows with cond(I). Take device 0's
+        # copy everywhere (adding zeros is exact).
+        U, W, V, eP, eF = (psum(jnp.where(d == 0, x, jnp.zeros_like(x)))
+                           for x in (U, W, V, eP, eF))
 
         # ---- f32 preconditioner: per-shard dense stripes + psum'd S --------
         U32 = jnp.where(own_u[:, None, None], U.astype(f32), 0.0)

@@ -85,7 +85,7 @@ def test_multihost_at_scale_odd_count(n_hosts):
     single-process device tree. The full 3,499-map solve costs ~29 min per
     run on the forced-CPU test backend (measured), so solve-level equality
     is pinned at 875 and the 3,499 bookkeeping is asserted exactly in
-    test_multihost_nc3500_plan below; the TPU bench runs 3,499 end-to-end
+    test_multihost_nc3500_plan below; the bench runs 3,499 end-to-end
     (BASELINE.md ladder)."""
     kw = dict(method="refine")
     lms, _ = _dataset(875, "stereo")
@@ -125,14 +125,10 @@ def test_multihost_two_processes(tmp_path, datatype, port):
     procs = []
     for pid in range(2):
         env = dict(os.environ)
+        # JAX_COMPILATION_CACHE_DIR comes from conftest: the machine-local
+        # disk cache, so the workers don't recompile the whole subtree
         env.update(JAX_PLATFORMS="cpu",
                    XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                   LINEARSFM_JAX_CACHE="0",
-                   # machine-local disk cache (same policy as conftest):
-                   # the workers recompile the whole subtree otherwise
-                   JAX_COMPILATION_CACHE_DIR=os.environ.get(
-                       "LINEARSFM_TEST_CACHE",
-                       "/tmp/linearsfm_jax_cpu_cache"),
                    JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="1")
         procs.append(subprocess.Popen(
             [sys.executable, script, f"127.0.0.1:{port}", "2", str(pid),

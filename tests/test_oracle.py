@@ -45,19 +45,19 @@ def _run_case(tmp_path, datatype, num, noise, seed, atol, **solver_kw):
     assert r.returncode == 0, r.stdout.decode()[-500:]
 
     final, _ = pipeline.run(str(tmp_path), num, datatype,
-                            pose_path=str(tmp_path / "pose_tpu.txt"),
-                            feat_path=str(tmp_path / "feat_tpu.txt"),
+                            pose_path=str(tmp_path / "pose_jax.txt"),
+                            feat_path=str(tmp_path / "feat_jax.txt"),
                             progress=False,
                             solver=TreeSolver(datatype, **solver_kw))
 
     ids_r, poses_r = lio.read_poses(str(tmp_path / "pose_ref.txt"))
-    ids_t, poses_t = lio.read_poses(str(tmp_path / "pose_tpu.txt"))
+    ids_t, poses_t = lio.read_poses(str(tmp_path / "pose_jax.txt"))
     np.testing.assert_array_equal(ids_r, ids_t)
     err = np.abs(poses_r - poses_t).max()
     assert err < atol, f"pose divergence vs oracle: {err}"
 
     fid_r, feats_r = lio.read_features(str(tmp_path / "feat_ref.txt"))
-    fid_t, feats_t = lio.read_features(str(tmp_path / "feat_tpu.txt"))
+    fid_t, feats_t = lio.read_features(str(tmp_path / "feat_jax.txt"))
     np.testing.assert_array_equal(fid_r, fid_t)
     ferr = np.abs(feats_r - feats_t).max()
     assert ferr < atol, f"feature divergence vs oracle: {ferr}"

@@ -56,13 +56,13 @@ def _run_case(tmp_path, datatype, num, noise, seed, atol, covis_radius=6.0,
     assert r.returncode == 0, r.stdout.decode()[-500:]
 
     final, _ = pipeline.run(str(tmp_path), num, datatype,
-                            pose_path=str(tmp_path / "pose_tpu.txt"),
-                            feat_path=str(tmp_path / "feat_tpu.txt"),
+                            pose_path=str(tmp_path / "pose_jax.txt"),
+                            feat_path=str(tmp_path / "feat_jax.txt"),
                             progress=False,
                             solver=DeviceTreeSolver(datatype))
 
     ids_r, poses_r = lio.read_poses(str(tmp_path / "pose_ref.txt"))
-    ids_t, poses_t = lio.read_poses(str(tmp_path / "pose_tpu.txt"))
+    ids_t, poses_t = lio.read_poses(str(tmp_path / "pose_jax.txt"))
     np.testing.assert_array_equal(ids_r, ids_t)
     err = np.abs(poses_r - poses_t).max()
     assert err < atol, f"pose divergence vs oracle: {err}"

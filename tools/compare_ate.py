@@ -1,4 +1,4 @@
-"""ATE comparison: TPU pipeline vs the reference oracle on a shared dataset.
+"""ATE comparison: this pipeline vs the reference oracle on a shared dataset.
 
 Usage: python tools/compare_ate.py --num 128 --type stereo [--noise 0.005]
 Runs both on freshly generated data and reports max/RMS pose differences and
@@ -35,12 +35,12 @@ def main():
                     help="write the comparison record to this path")
     ap.add_argument("--dir", default=None,
                     help="persistent working dir (default: fresh tempdir)")
-    ap.add_argument("--phase", choices=["both", "oracle", "tpu"],
+    ap.add_argument("--phase", choices=["both", "oracle", "solve"],
                     default="both",
                     help="'oracle': generate data + run the reference only "
                          "(background-friendly, records timing in "
-                         "DIR/oracle_meta.json); 'tpu': reuse DIR from a "
-                         "previous oracle phase and run/compare the TPU side")
+                         "DIR/oracle_meta.json); 'solve': reuse DIR from a "
+                         "previous oracle phase and run/compare this solver")
     args = ap.parse_args()
 
     import json
@@ -95,13 +95,13 @@ def main():
 
     poses_gt = np.load(os.path.join(d, "poses_gt.npy"))
     from linearsfm_tpu.core import pipeline
-    final, t_tpu = pipeline.run(d, args.num, args.type,
-                                pose_path=d + "/pose_tpu.txt",
-                                feat_path=d + "/feat_tpu.txt", progress=False,
+    final, t_jax = pipeline.run(d, args.num, args.type,
+                                pose_path=d + "/pose_jax.txt",
+                                feat_path=d + "/feat_jax.txt", progress=False,
                                 executor=args.executor, method=args.method)
 
     ids_r, pr = lio.read_poses(d + "/pose_ref.txt")
-    ids_t, pt = lio.read_poses(d + "/pose_tpu.txt")
+    ids_t, pt = lio.read_poses(d + "/pose_jax.txt")
     assert (ids_r == ids_t).all()
     d_ref = np.abs(pr - pt)
     def ate(p, ids):
@@ -110,17 +110,17 @@ def main():
         return float(np.sqrt(np.mean(np.square(errs))))
     print(f"maps={args.num} type={args.type} noise={args.noise} "
           f"covis={args.covis}")
-    print(f"oracle wall: {t_oracle:.2f}s   tpu wall: {t_tpu:.2f}s")
+    print(f"oracle wall: {t_oracle:.2f}s   jax wall: {t_jax:.2f}s")
     print(f"pose diff vs oracle: max {d_ref.max():.3e}  rms {np.sqrt((d_ref**2).mean()):.3e}")
-    print(f"ATE vs gt: oracle {ate(pr, ids_r):.4f}  tpu {ate(pt, ids_t):.4f}")
+    print(f"ATE vs gt: oracle {ate(pr, ids_r):.4f}  jax {ate(pt, ids_t):.4f}")
     if args.json:
         rec = dict(num=args.num, type=args.type, noise=args.noise,
                    seed=args.seed, covis=bool(args.covis),
                    oracle_wall_s=round(t_oracle, 3),
-                   tpu_wall_s=round(t_tpu, 3),
+                   jax_wall_s=round(t_jax, 3),
                    pose_diff_max=float(d_ref.max()),
                    pose_diff_rms=float(np.sqrt((d_ref ** 2).mean())),
-                   ate_oracle=ate(pr, ids_r), ate_tpu=ate(pt, ids_t))
+                   ate_oracle=ate(pr, ids_r), ate_jax=ate(pt, ids_t))
         with open(args.json, "w") as fh:
             json.dump(rec, fh, indent=1)
         print(f"wrote {args.json}")

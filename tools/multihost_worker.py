@@ -1,5 +1,5 @@
 """Worker process for the real two-process multi-host test (and for manual
-multi-host runs): jax.distributed bootstrap + host-local subtree + DCN
+multi-host runs): jax.distributed bootstrap + host-local subtree + cross-host
 allgather + replicated top levels.
 
 Usage: multihost_worker.py <coordinator> <num_processes> <process_id> <outdir>

@@ -12,7 +12,7 @@
 
 /* Debug aid: CHOLMOD_SHIM_DUMP=<prefix> dumps each solve's dense system to
  * <prefix>_<k>_{A,b,x}.txt so the oracle's exact linear systems can be
- * compared against the TPU implementation's. */
+ * compared against the JAX implementation's. */
 static int g_solve_count = 0;
 
 /* The reference's flag parser allocates strlen bytes for each argument and
